@@ -5,7 +5,7 @@ Flag-surface parity with the reference CLI (/root/reference/src/cli.rs:5-62):
   pgen-tpu query  PFILE_PREFIX -f/--fstring EXPR [-i/--include EXPR] [-s/--samples]
   pgen-tpu filter PFILE_PREFIX [--include-var EXPR] [--include-sam EXPR] [-o/--out FILE]
 
-plus TPU-native extensions absent in the reference:
+plus extensions absent in the reference:
 
   pgen-tpu describe PGEN_FILE          # general-header introspection (the
                                        # reference's dead Pgen path, pgen.rs)
@@ -27,7 +27,10 @@ import sys
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pgen-tpu",
-        description="Query and filter PLINK2 .pgen filesets (TPU-native pgen engine).",
+        description=(
+            "Query and filter PLINK2 .pgen filesets (JAX engine with a GPU "
+            "device provider)."
+        ),
     )
     p.add_argument("--version", action="version", version=_version())
     sub = p.add_subparsers(dest="command", required=True)
@@ -335,7 +338,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         default=None,
         help=(
             "Write a jax.profiler trace of the run to DIR (device-provider "
-            "kernels appear on the TPU timeline; host stages as TraceMe "
+            "kernels appear on the GPU timeline; host stages as TraceMe "
             "annotations)."
         ),
     )
@@ -490,7 +493,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
     kg = sub.add_parser(
         "king",
-        help="Pairwise KING-robust kinship table (MXU matmul workload).",
+        help="Pairwise KING-robust kinship table (matmul workload).",
         description=(
             "plink2 --make-king-table analog: estimates kinship for every "
             "sample pair from the 2-bit hard calls via the robust "
@@ -526,7 +529,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     kg.add_argument(
         "--provider", choices=["auto", "native", "device", "numpy"],
         default="auto",
-        help="Gram-matmul engine: device = TPU MXU, native/numpy = BLAS.",
+        help="Gram-matmul engine: device = GPU matmuls, native/numpy = BLAS.",
     )
     kg.add_argument("--block-variants", type=int, default=None,
                     help="Variant block height per Gram accumulation step.")
@@ -535,7 +538,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
     gn = sub.add_parser(
         "genome",
-        help="Pairwise IBD-sharing table (plink --genome analog; MXU "
+        help="Pairwise IBD-sharing table (plink --genome analog; "
              "matmul workload).",
         description=(
             "plink 1.9 --genome analog: estimates pairwise IBD sharing "
@@ -566,7 +569,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     gn.add_argument(
         "--provider", choices=["auto", "native", "device", "numpy"],
         default="auto",
-        help="Gram-matmul engine: device = TPU MXU, native/numpy = BLAS.",
+        help="Gram-matmul engine: device = GPU matmuls, native/numpy = BLAS.",
     )
     gn.add_argument("--block-variants", type=int, default=None,
                     help="Variant block height per Gram accumulation step.")
@@ -575,7 +578,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
     pc = sub.add_parser(
         "pca",
-        help="Top-K principal components via the GRM (MXU matmul workload).",
+        help="Top-K principal components via the GRM (matmul workload).",
         description=(
             "plink2 --pca analog: standardizes the hard-call dosage matrix "
             "(mean-imputed missing, monomorphic variants dropped), builds "
@@ -609,7 +612,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     pc.add_argument(
         "--provider", choices=["auto", "native", "device", "numpy"],
         default="auto",
-        help="GRM engine: device = TPU MXU, native/numpy = BLAS.",
+        help="GRM engine: device = GPU matmuls, native/numpy = BLAS.",
     )
     pc.add_argument("--block-variants", type=int, default=None,
                     help="Variant block height per GRM accumulation step.")
@@ -628,7 +631,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
     sc = sub.add_parser(
         "score",
-        help="Polygenic scores from a weight table (MXU matmul workload).",
+        help="Polygenic scores from a weight table (matmul workload).",
         description=(
             "plink2 --score analog: matches a scoring file's variant IDs "
             "against the pvar, orients dosages to the effect allele (REF "
@@ -684,7 +687,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     sc.add_argument(
         "--provider", choices=["auto", "native", "device", "numpy"],
         default="auto",
-        help="Dosage-matmul engine: device = TPU MXU, native/numpy = BLAS.",
+        help="Dosage-matmul engine: device = GPU matmuls, native/numpy = BLAS.",
     )
     sc.add_argument(
         "--q-score-range", dest="q_score_range", nargs=2, default=None,
@@ -705,7 +708,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
     gl = sub.add_parser(
         "glm",
-        help="Per-variant association GWAS (MXU matmul workload).",
+        help="Per-variant association GWAS (matmul workload).",
         description=(
             "plink2 --glm analog: for every kept variant, regression of a "
             "psam phenotype on [intercept, covariates, alt dosage] over "
@@ -769,7 +772,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     gl.add_argument(
         "--provider", choices=["auto", "native", "device", "numpy"],
         default="auto",
-        help="Moment-matmul engine: device = TPU MXU, native/numpy = BLAS.",
+        help="Moment-matmul engine: device = GPU matmuls, native/numpy = BLAS.",
     )
     gl.add_argument("--block-variants", type=int, default=None,
                     help="Variant block height per moment-matmul step.")
@@ -1052,7 +1055,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
             "windows (count or kb, per chromosome), pairs above the r2 "
             "threshold lose their lower-MAF member. Correlations use "
             "mean-imputed dosages computed as banded Gram matmuls "
-            "(MXU on the device provider, BLAS on host). Writes "
+            "(GPU on the device provider, BLAS on host). Writes "
             "OUT.prune.in / OUT.prune.out ID lists."
         ),
     )
@@ -1076,7 +1079,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     pr.add_argument(
         "--provider", choices=["auto", "native", "device", "numpy"],
         default="auto",
-        help="Banded-Gram engine: device = TPU MXU, native/numpy = BLAS.",
+        help="Banded-Gram engine: device = GPU matmuls, native/numpy = BLAS.",
     )
     pr.add_argument("--stats", action="store_true",
                     help="Print per-stage timing/bandwidth to stderr.")
@@ -1088,7 +1091,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
             "plink --r2 analog: reports r2 for variant pairs within the "
             "index/kb windows, computed from mean-imputed centered "
             "dosages via the banded Gram machinery (one gemm per band "
-            "tile; MXU on the device provider). Output is a .ld-flavored "
+            "tile; GPU on the device provider). Output is a .ld-flavored "
             "TSV: CHR_A BP_A SNP_A CHR_B BP_B SNP_B R2. Pairs never "
             "span chromosomes. Accepts the same predicates/regions/"
             "sample lists as filter."
@@ -1119,7 +1122,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ldp.add_argument(
         "--provider", choices=["auto", "native", "device", "numpy"],
         default="auto",
-        help="Band-gemm engine: device = TPU MXU, native/numpy = BLAS.",
+        help="Band-gemm engine: device = GPU matmuls, native/numpy = BLAS.",
     )
     ldp.add_argument("--stats", action="store_true",
                      help="Print per-stage timing/bandwidth to stderr.")
@@ -1477,6 +1480,16 @@ def main(argv=None) -> int:
                         f"ID(s) -> {lst}",
                         file=sys.stderr,
                     )
+            if (
+                args.provider == "device"
+                and args.workers is not None
+                and args.workers > 1
+            ):
+                raise ValueError(
+                    "--workers N with --provider device would open the GPU "
+                    "from N processes; drop --workers: --provider device "
+                    "alone runs the device mesh, which is the multi-GPU path"
+                )
             if args.out_file == "-":
                 # stdout streaming rides the pipe sink of the single-process
                 # VCF writer; every other path pwrites at computed offsets

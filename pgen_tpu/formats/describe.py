@@ -1,6 +1,6 @@
 """General (variable-record) PGEN header introspector.
 
-TPU-native counterpart of the reference's ``Pgen`` diagnostic path
+Counterpart of the reference's ``Pgen`` diagnostic path
 (/root/reference/src/pgen.rs:5-259, dead at runtime there but part of the
 component inventory, SURVEY.md C12). Given a non-mode-0x02 .pgen it reports:
 

@@ -14,7 +14,7 @@ Parity notes (reference: /root/reference/src/pfile.rs):
   (pfile.rs:270-283); rows whose field count differs from the header are a
   hard error there, and are here too.
 
-TPU-native design: instead of the reference's per-row csv iteration, the whole
+Vectorized design: instead of the reference's per-row csv iteration, the whole
 data region is loaded once and field boundaries are recovered with vectorized
 byte scans (one pass); per-column padded byte matrices are materialized lazily
 for the predicate compiler (SURVEY.md C5/C7). Raw row bytes are kept so the
@@ -70,7 +70,7 @@ class MetadataTable:
         column's bytes padded with zeros, and per-row byte lengths.
 
         This is the device-friendly representation the predicate compiler
-        ships to TPU (zero-padded u8 tiles; SURVEY.md C7).
+        ships to the device (zero-padded u8 tiles; SURVEY.md C7).
         """
         key = ("padded", name)
         if key not in self._col_cache:

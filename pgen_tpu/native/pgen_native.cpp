@@ -1,7 +1,7 @@
 // pgen_tpu native host runtime: single-pass VCF row emission + 2-bit codecs.
 //
-// TPU-native framework split (SURVEY.md §7 "Hard parts" #1): the genotype
-// matrix math runs on device (Pallas kernels in ops/), but the byte-exact
+// Framework split (SURVEY.md §7 "Hard parts" #1): the genotype
+// matrix math runs on device (jax ops in ops/), but the byte-exact
 // VCF text must ultimately stream through the host to the filesystem. The
 // reference spends most of its keep-all wall time in per-sample write calls
 // (/root/reference/src/pfile.rs:171-188, 18.9 s sys on chr22 — SURVEY.md §6).
@@ -484,9 +484,8 @@ int64_t pgen_assemble_rows_buf(const unsigned char* gt_text, int64_t gt_len,
 }
 
 // Assemble rows from FOUR text-word planes (device plane-form output:
-// plane k lane j = u32 text word of sample 4j+k — the interleaved layout
-// is a relayout TPU materialization pays ~10x for, so the device emits
-// planes and the interleave happens here, a sequential 4-stream merge).
+// plane k word j = u32 text word of sample 4j+k; the device emits planes
+// and the interleave happens here, a sequential 4-stream merge).
 // gt_len = bytes of genotype text per row (4 * n_kept_samples);
 // plane_words = u32 lanes per plane row (>= ceil(gt_len/16)).
 int64_t pgen_assemble_rows_planes(const uint32_t* t0, const uint32_t* t1,

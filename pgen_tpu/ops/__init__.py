@@ -1,7 +1,7 @@
 """Device/host compute ops.
 
 Lazy export surface (PEP 562): importing a sibling like
-``pgen_tpu.ops.gt_stats`` must NOT drag in jax/pallas (~1 s) through this
+``pgen_tpu.ops.gt_stats`` must NOT drag in jax (~1 s) through this
 package __init__ — the CLI's default native path runs whole filters
 without touching jax. ``from pgen_tpu.ops import unpack_codes`` still
 works; the kernel modules load on first attribute access.

@@ -1,5 +1,5 @@
 """Per-variant linear association (GWAS): masked-moment matmuls + batched
-tiny solves (MXU workload).
+tiny solves (matmul workload).
 
 The plink2 `--glm` linear-regression analog (extension — the reference is
 a query/filter tool, /root/reference/README.md:3-5). For each variant v,
@@ -7,7 +7,7 @@ ordinary least squares of the phenotype on [1, covariates, dosage] over
 that variant's COMPLETE CASES (samples with a called genotype), exactly
 like plink2 — no imputation.
 
-TPU-first formulation: every per-variant normal-equation entry is a
+Matmul-first formulation: every per-variant normal-equation entry is a
 masked sum over samples, and masked sums are matmuls. With M the (V, S)
 called-mask matrix and G the (V, S) dosage matrix (missing -> 0):
 
@@ -19,7 +19,7 @@ called-mask matrix and G the (V, S) dosage matrix (missing -> 0):
                              g^2 in {0,1,4} is its own elementwise square.
 
 So one (V, S) x (S, P) product per variant block delivers ALL moments
-(P = 2k + k(k+1)/2 + 3 columns for k covariates) — MXU work on the
+(P = 2k + k(k+1)/2 + 3 columns for k covariates) — matmul work on the
 device provider, dgemm on host. The (k+2)-dim normal equations then
 solve batched on host LAPACK in f64 (V systems of a tiny fixed size),
 far off the critical path.
@@ -149,10 +149,10 @@ def glm_moments_numpy(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "block_variants", "interpret")
+    jax.jit, static_argnames=("num_samples", "block_variants")
 )
 def _glm_moments_device_jit(
-    packed, pcols, q, sel, num_samples, block_variants, interpret
+    packed, pcols, q, sel, num_samples, block_variants
 ):
     """Blocked scan: unpack -> mask/dosage -> f32 moment matmuls.
     Pad rows must be 0xFF (all-missing): every moment is 0."""
@@ -166,7 +166,7 @@ def _glm_moments_device_jit(
     packed = jnp.pad(packed, ((0, pad), (0, 0)), constant_values=0xFF)
 
     def body(_, blk):
-        codes = unpack_codes(blk, num_samples, interpret=interpret)
+        codes = unpack_codes(blk, num_samples)
         if sel is not None:
             codes = jnp.take(codes, sel, axis=1)
         cal = codes != 3
@@ -197,7 +197,6 @@ def glm_moments_device(
     y,
     covars,
     block_variants: int = 1 << 14,
-    interpret: bool = False,
     sample_idx=None,
 ) -> GlmMoments:
     y = np.asarray(y, dtype=np.float64)
@@ -213,7 +212,7 @@ def glm_moments_device(
     sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
     outs = _glm_moments_device_jit(
         np.asarray(packed, np.uint8), pcols, q, sel, num_samples,
-        block_variants, interpret,
+        block_variants,
     )
     return GlmMoments(*(np.asarray(o, np.float64) for o in outs))
 
@@ -313,14 +312,16 @@ def glm_moments(
     if provider == "device":
         import jax
 
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         if len(jax.devices()) > 1:
             return glm_moments_mesh(np.asarray(packed), num_samples, y,
                                     covars, **kw)
         return glm_moments_device(
             np.asarray(packed), num_samples, y, covars,
-            interpret=is_interpret_backend(), **kw,
+            **kw,
         )
     return glm_moments_numpy(packed, num_samples, y, covars, **kw)
 
@@ -365,9 +366,9 @@ def build_glm_mesh_step(
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from pgen_tpu.parallel.mesh import VARIANT_AXIS
-    from pgen_tpu.pipeline.device import is_interpret_backend
+    from pgen_tpu.pipeline.device import device_backend
 
-    interpret = is_interpret_backend()
+    device_backend()
     y = np.asarray(y, dtype=np.float64)
     covars = np.asarray(covars, dtype=np.float64)
     y, covars = _centered(y, covars)
@@ -379,7 +380,6 @@ def build_glm_mesh_step(
         def inner(packed_l):
             return _glm_moments_device_jit(
                 packed_l, pcols, q, sel, num_samples, block_variants,
-                interpret,
             )
 
         return jax.shard_map(
@@ -594,10 +594,10 @@ def glm_geno_moments_numpy(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "block_variants", "interpret")
+    jax.jit, static_argnames=("num_samples", "block_variants")
 )
 def _glm_geno_moments_device_jit(
-    packed, pcols, q2, sel, num_samples, block_variants, interpret
+    packed, pcols, q2, sel, num_samples, block_variants
 ):
     """Blocked scan: unpack -> three f32 moment matmuls (M/HET/HOM).
     Pad rows must be 0xFF (all-missing): every moment is 0."""
@@ -611,7 +611,7 @@ def _glm_geno_moments_device_jit(
     packed = jnp.pad(packed, ((0, pad), (0, 0)), constant_values=0xFF)
 
     def body(_, blk):
-        codes = unpack_codes(blk, num_samples, interpret=interpret)
+        codes = unpack_codes(blk, num_samples)
         if sel is not None:
             codes = jnp.take(codes, sel, axis=1)
         mf = (codes != 3).astype(jnp.float32)
@@ -671,9 +671,9 @@ def build_glm_geno_mesh_step(
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from pgen_tpu.parallel.mesh import VARIANT_AXIS
-    from pgen_tpu.pipeline.device import is_interpret_backend
+    from pgen_tpu.pipeline.device import device_backend
 
-    interpret = is_interpret_backend()
+    device_backend()
     pcols, q2 = _geno_moment_inputs(y, covars, dtype=np.float32)
     sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
 
@@ -681,7 +681,6 @@ def build_glm_geno_mesh_step(
         def inner(packed_l):
             return _glm_geno_moments_device_jit(
                 packed_l, pcols, q2, sel, num_samples, block_variants,
-                interpret,
             )
 
         return jax.shard_map(
@@ -742,7 +741,9 @@ def glm_geno_moments(
                 np.asarray(packed), num_samples, y, covars,
                 block_variants=bv, sample_idx=sample_idx,
             )
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         pcols, q2 = _geno_moment_inputs(y, covars, dtype=np.float32)
         if packed.shape[0] == 0:
@@ -754,7 +755,7 @@ def glm_geno_moments(
         sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
         outs = _glm_geno_moments_device_jit(
             np.asarray(packed, np.uint8), pcols, q2, sel, num_samples,
-            bv, is_interpret_backend(),
+            bv,
         )
         return GlmGenoMoments(*(np.asarray(o, np.float64) for o in outs))
     return glm_geno_moments_numpy(
@@ -987,10 +988,10 @@ def glm_int_moments_numpy(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "block_variants", "interpret")
+    jax.jit, static_argnames=("num_samples", "block_variants")
 )
 def _glm_int_moments_device_jit(
-    packed, pcols, sel, num_samples, block_variants, interpret
+    packed, pcols, sel, num_samples, block_variants
 ):
     """Blocked scan: unpack -> three f32 moment matmuls (M/G/G^2 @ P).
     Pad rows must be 0xFF (all-missing): every moment is 0."""
@@ -1004,7 +1005,7 @@ def _glm_int_moments_device_jit(
     packed = jnp.pad(packed, ((0, pad), (0, 0)), constant_values=0xFF)
 
     def body(_, blk):
-        codes = unpack_codes(blk, num_samples, interpret=interpret)
+        codes = unpack_codes(blk, num_samples)
         if sel is not None:
             codes = jnp.take(codes, sel, axis=1)
         cal = codes != 3
@@ -1035,7 +1036,9 @@ def glm_int_moments(
     scan — per-variant outputs are embarrassingly parallel, so chunk
     externally for pod-scale fan-out)."""
     if provider == "device":
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         y64 = np.asarray(y, dtype=np.float64)
         c64 = np.asarray(covars, dtype=np.float64)
@@ -1049,7 +1052,6 @@ def glm_int_moments(
         outs = _glm_int_moments_device_jit(
             np.asarray(packed, np.uint8), pcols, sel, num_samples,
             1 << 14 if block_variants is None else int(block_variants),
-            is_interpret_backend(),
         )
         return GlmIntMoments(*(np.asarray(o, np.float64) for o in outs))
     return glm_int_moments_numpy(

@@ -62,13 +62,13 @@ def gt_counts_native(packed: np.ndarray, num_samples: int) -> np.ndarray:
     return native.gt_counts(packed, num_samples)
 
 
-def gt_counts_device(packed, num_samples: int, interpret: bool = False):
+def gt_counts_device(packed, num_samples: int):
     """jnp: one-hot reduction over the unpacked code matrix (jit-safe)."""
     import jax.numpy as jnp
 
     from pgen_tpu.ops.unpack import unpack_codes
 
-    codes = unpack_codes(packed, num_samples, interpret=interpret)
+    codes = unpack_codes(packed, num_samples)
     ks = jnp.arange(4, dtype=jnp.uint8)
     return jnp.sum(
         codes[:, :, None] == ks[None, None, :], axis=1, dtype=jnp.int32
@@ -161,11 +161,13 @@ def gt_counts(packed: np.ndarray, num_samples: int, provider: str = "native") ->
             return gt_counts_native(packed, num_samples)
         provider = "numpy"
     if provider == "device":
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         return np.asarray(
             gt_counts_device(
-                np.asarray(packed), num_samples, interpret=is_interpret_backend()
+                np.asarray(packed), num_samples
             )
         ).astype(np.int64)
     return gt_counts_numpy(packed, num_samples)
@@ -213,7 +215,7 @@ def sample_counts_numpy(packed: np.ndarray, num_samples: int) -> np.ndarray:
     return out[:num_samples]
 
 
-def sample_counts_device(packed, num_samples: int, interpret: bool = False):
+def sample_counts_device(packed, num_samples: int):
     """jnp: reduce the unpacked code matrix over the variant axis — a
     column reduction XLA fuses with the 2-bit unpack (the packed bytes are
     the only HBM read)."""
@@ -221,7 +223,7 @@ def sample_counts_device(packed, num_samples: int, interpret: bool = False):
 
     from pgen_tpu.ops.unpack import unpack_codes
 
-    codes = unpack_codes(packed, num_samples, interpret=interpret)
+    codes = unpack_codes(packed, num_samples)
     ks = jnp.arange(4, dtype=jnp.uint8)
     return jnp.sum(codes[:, :, None] == ks[None, None, :], axis=0, dtype=jnp.int32)
 
@@ -239,11 +241,13 @@ def sample_counts(
             return native.sample_counts(packed, num_samples)
         provider = "numpy"
     if provider == "device":
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         return np.asarray(
             sample_counts_device(
-                np.asarray(packed), num_samples, interpret=is_interpret_backend()
+                np.asarray(packed), num_samples
             )
         ).astype(np.int64)
     return sample_counts_numpy(packed, num_samples)

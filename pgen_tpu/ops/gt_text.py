@@ -9,11 +9,10 @@ a variant block is produced as one device byte tensor:
     sample s contributes 4 output bytes [\t, b0, /, b1] at columns 4s..4s+3
       code 0 -> \t0/0   code 1 -> \t0/1   code 2 -> \t1/1   code 3 -> \t./.
 
-Relayout-free design (see unpack.py): each code becomes ONE uint32 word
-``TAB | b0<<8 | SLASH<<16 | b1<<24`` — elementwise, no lookup table, since
-b0/b1 are 2-way selects on the code — and the word array is bitcast to bytes
-at the XLA boundary. The fused packed->text path composes the unpack-words
-kernel with this one; both stream at HBM bandwidth.
+Each code becomes ONE uint32 word ``TAB | b0<<8 | SLASH<<16 | b1<<24`` —
+elementwise, no lookup table, since b0/b1 are 2-way selects on the code —
+and the word array is bitcast to bytes. The fused packed->text path composes
+the unpack words (see unpack.py) with this one in a single XLA fusion.
 """
 
 from __future__ import annotations
@@ -23,10 +22,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from pgen_tpu.ops.unpack import _block_rows, unpack_words, words_to_bytes
+from pgen_tpu.ops.unpack import _unpack_words, words_to_bytes
 
 _TAB = ord("\t")
 _SLASH = ord("/")
@@ -42,53 +39,34 @@ def _text_word(c: jnp.ndarray) -> jnp.ndarray:
     return _TAB | (b0 << 8) | (_SLASH << 16) | (b1 << 24)
 
 
-def _codes_kernel(in_ref, out_ref):
-    out_ref[:] = _text_word(in_ref[:].astype(jnp.uint32))
-
-
-def _text_words_from_codes(codes: jnp.ndarray, interpret: bool) -> jnp.ndarray:
-    nvar, nsamp = codes.shape
-    tv = _block_rows(nsamp * (1 + 4 + 4 * 6))
-    grid = (pl.cdiv(nvar, tv),)
-    return pl.pallas_call(
-        _codes_kernel,
-        out_shape=jax.ShapeDtypeStruct((nvar, nsamp), jnp.uint32),
-        grid=grid,
-        in_specs=[pl.BlockSpec((tv, nsamp), lambda i: (i, 0), memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((tv, nsamp), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(codes)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def genotype_text_from_codes(codes: jnp.ndarray, interpret: bool = False):
+@jax.jit
+def genotype_text_from_codes(codes: jnp.ndarray):
     """(V, S) u8 codes -> (V, 4S) u8 VCF text ("\\t" + 3-byte token per call)."""
     nvar, nsamp = codes.shape
     if nvar == 0 or nsamp == 0:
         return jnp.zeros((nvar, 4 * nsamp), dtype=jnp.uint8)
-    return words_to_bytes(_text_words_from_codes(codes, interpret))
+    return words_to_bytes(_text_word(codes.astype(jnp.uint32)))
 
 
-@functools.partial(jax.jit, static_argnames=("num_samples", "interpret"))
-def genotype_text(packed: jnp.ndarray, num_samples: int, interpret: bool = False):
+@functools.partial(jax.jit, static_argnames=("num_samples",))
+def genotype_text(packed: jnp.ndarray, num_samples: int):
     """Fused packed-records -> VCF GT text.
 
-    (V, rec_size) u8 -> (V, 4*num_samples) u8: unpack-words kernel, free
-    bitcast to the code matrix, text-words kernel, free bitcast to bytes.
-    This is the keep-all-samples fast path.
+    (V, rec_size) u8 -> (V, 4*num_samples) u8: unpack words, bitcast to the
+    code matrix, text words, bitcast to bytes. The filter itself uses the
+    plane form below.
     """
     if packed.shape[0] == 0 or num_samples == 0:
         return jnp.zeros((packed.shape[0], 4 * num_samples), dtype=jnp.uint8)
-    codes = words_to_bytes(unpack_words(packed, interpret))
-    return genotype_text_from_codes(codes, interpret=interpret)[:, : 4 * num_samples]
+    codes = words_to_bytes(_unpack_words(packed))
+    return genotype_text_from_codes(codes)[:, : 4 * num_samples]
 
 
 def planes_from_packed(packed: jnp.ndarray):
     """Plane-form text: four (V, R) u32 planes, plane k lane j = text word
     of sample 4j+k, elementwise from the packed byte (no unpack bitcast,
-    no interleave). Materializes ~10x faster than the interleaved tensor
-    on TPU (docs/BENCHMARKS.md round 2); the host assembler interleaves
-    (native assemble_rows_planes / interleave_planes). This is THE
+    no interleave); the host assembler interleaves (native
+    assemble_rows_planes / interleave_planes). This is THE
     plane-k/sample-4j+k contract — every producer and consumer goes
     through here or the two assemblers."""
     xi = packed.astype(jnp.uint32)

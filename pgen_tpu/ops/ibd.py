@@ -2,7 +2,7 @@
 moments Z0/Z1/Z2/PI_HAT.
 
 An extension over the reference (whose scope stops at query/filter,
-/root/reference/README.md:3-5), continuing the MXU matmul-workload family
+/root/reference/README.md:3-5), continuing the matmul-workload family
 (ops/king.py): plink 1.9's `--genome` pairwise IBD report, which plink2
 dropped in favor of KING — both live here, because the PI_HAT/Z columns
 are still what many downstream QC pipelines consume.
@@ -151,10 +151,10 @@ def _block_grams(codes):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "block_variants", "interpret")
+    jax.jit, static_argnames=("num_samples", "block_variants")
 )
 def _ibd_counts_device_jit(
-    packed, num_samples: int, block_variants: int, interpret: bool
+    packed, num_samples: int, block_variants: int
 ):
     import jax.numpy as jnp
 
@@ -166,7 +166,7 @@ def _ibd_counts_device_jit(
     packed = jnp.pad(packed, ((0, pad), (0, 0)), constant_values=0xFF)
 
     def body(carry, blk):
-        codes = unpack_codes(blk, num_samples, interpret=interpret)
+        codes = unpack_codes(blk, num_samples)
         g = _block_grams(codes)
         return tuple(acc + d for acc, d in zip(carry, g)), None
 
@@ -180,10 +180,10 @@ def _ibd_counts_device_jit(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "block_variants", "interpret")
+    jax.jit, static_argnames=("num_samples", "block_variants")
 )
 def _ibd_counts_device_sel_jit(
-    packed, sel, num_samples: int, block_variants: int, interpret: bool
+    packed, sel, num_samples: int, block_variants: int
 ):
     """Cohort variant: gather kept sample columns before the Grams."""
     import jax.numpy as jnp
@@ -196,7 +196,7 @@ def _ibd_counts_device_sel_jit(
     packed = jnp.pad(packed, ((0, pad), (0, 0)), constant_values=0xFF)
 
     def body(carry, blk):
-        codes = unpack_codes(blk, num_samples, interpret=interpret)
+        codes = unpack_codes(blk, num_samples)
         codes = jnp.take(codes, sel, axis=1)
         g = _block_grams(codes)
         return tuple(acc + d for acc, d in zip(carry, g)), None
@@ -212,10 +212,9 @@ def ibd_counts_device(
     packed,
     num_samples: int,
     block_variants: int = 1 << 15,
-    interpret: bool = False,
     sample_idx=None,
 ) -> IbdCounts:
-    """Device provider: bf16 indicator Grams on the MXU, f32 accumulation.
+    """Device provider: bf16 indicator Grams, f32 accumulation.
 
     Exact while total variants < 2^24 (asserted); chunk calls above that.
     """
@@ -232,11 +231,11 @@ def ibd_counts_device(
         return IbdCounts(*(z.copy() for _ in range(5)))
     bv = min(block_variants, 1 << 24)
     if sample_idx is None:
-        out = _ibd_counts_device_jit(packed, num_samples, bv, interpret)
+        out = _ibd_counts_device_jit(packed, num_samples, bv)
     else:
         out = _ibd_counts_device_sel_jit(
             packed, np.asarray(sample_idx, dtype=np.int32),
-            num_samples, bv, interpret,
+            num_samples, bv,
         )
     return IbdCounts(*(np.asarray(g, dtype=np.float64) for g in out))
 
@@ -279,25 +278,25 @@ def build_ibd_mesh_step(
     mesh, num_samples: int, block_variants: int = 1 << 15, sample_idx=None
 ):
     """Variant-sharded mesh IBD Grams: per-shard scan + one 5-tensor psum
-    (the only collective, 5*S^2 f32 on ICI); output replicated. Mirrors
+    (the only collective, 5*S^2 f32); output replicated. Mirrors
     ops/king.py build_king_mesh_step."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from pgen_tpu.parallel.mesh import VARIANT_AXIS
-    from pgen_tpu.pipeline.device import is_interpret_backend
+    from pgen_tpu.pipeline.device import device_backend
 
-    interpret = is_interpret_backend()
+    device_backend()
     sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
 
     def step(packed):
         def inner(packed_l):
             if sel is None:
                 grams = _ibd_counts_device_jit(
-                    packed_l, num_samples, block_variants, interpret
+                    packed_l, num_samples, block_variants
                 )
             else:
                 grams = _ibd_counts_device_sel_jit(
-                    packed_l, sel, num_samples, block_variants, interpret
+                    packed_l, sel, num_samples, block_variants
                 )
             return tuple(jax.lax.psum(g, VARIANT_AXIS) for g in grams)
 
@@ -320,13 +319,15 @@ def ibd_counts(
     if provider == "device":
         import jax
 
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         if len(jax.devices()) > 1:
             return ibd_counts_mesh(np.asarray(packed), num_samples, **kw)
         return ibd_counts_device(
             np.asarray(packed), num_samples,
-            interpret=is_interpret_backend(), **kw,
+            **kw,
         )
     return ibd_counts_numpy(packed, num_samples, **kw)
 

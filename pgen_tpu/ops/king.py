@@ -1,8 +1,8 @@
-"""Pairwise KING-robust kinship: the framework's first MXU-bound op.
+"""Pairwise KING-robust kinship: the framework's first matmul-bound op.
 
 Everything else in the engine is HBM-bandwidth bound (decode, text, stats
 reductions); relatedness estimation is the classic genetics workload that
-is genuinely matmul-shaped, so it runs on the MXU. This is capability the
+is genuinely matmul-shaped, so it runs as Gram matmuls. This is capability the
 reference does not have (its scope is query/filter, /root/reference/
 README.md:3-5) — the plink2 `--make-king-table` analog for mode-0x02
 hard-call filesets.
@@ -29,7 +29,7 @@ A=homalt (V x S indicators) and C = R + H + A (called):
 so the whole op is FOUR Gram matmuls per variant block (8 * V * S^2 MACs).
 
 Exactness: indicators are 0/1, exact in bf16; `jnp.dot` with
-`preferred_element_type=float32` accumulates on the MXU in f32, which
+`preferred_element_type=float32` accumulates in f32, which
 represents every integer < 2^24 exactly — each per-block count is bounded
 by the block height, and the cross-block sum is exact while the total
 variant count stays < 2^24 (16.7M, beyond any single chromosome). Callers
@@ -143,10 +143,10 @@ def _device_block_grams(codes_bf16):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "block_variants", "interpret")
+    jax.jit, static_argnames=("num_samples", "block_variants")
 )
 def _king_counts_device_jit(
-    packed, num_samples: int, block_variants: int, interpret: bool
+    packed, num_samples: int, block_variants: int
 ):
     import jax.numpy as jnp
 
@@ -159,7 +159,7 @@ def _king_counts_device_jit(
     packed = jnp.pad(packed, ((0, pad), (0, 0)), constant_values=0xFF)
 
     def body(carry, blk):
-        codes = unpack_codes(blk, num_samples, interpret=interpret)
+        codes = unpack_codes(blk, num_samples)
         ind = tuple(
             (codes == k).astype(jnp.bfloat16) for k in (1, 0, 2)
         )  # H, R, A
@@ -177,10 +177,10 @@ def _king_counts_device_jit(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "block_variants", "interpret")
+    jax.jit, static_argnames=("num_samples", "block_variants")
 )
 def _king_counts_device_sel_jit(
-    packed, sel, num_samples: int, block_variants: int, interpret: bool
+    packed, sel, num_samples: int, block_variants: int
 ):
     """Cohort variant: gather the kept sample columns before the Grams.
 
@@ -197,7 +197,7 @@ def _king_counts_device_sel_jit(
     packed = jnp.pad(packed, ((0, pad), (0, 0)), constant_values=0xFF)
 
     def body(carry, blk):
-        codes = unpack_codes(blk, num_samples, interpret=interpret)
+        codes = unpack_codes(blk, num_samples)
         codes = jnp.take(codes, sel, axis=1)
         ind = tuple((codes == k).astype(jnp.bfloat16) for k in (1, 0, 2))
         c = (codes != 3).astype(jnp.bfloat16)
@@ -215,10 +215,9 @@ def king_counts_device(
     packed,
     num_samples: int,
     block_variants: int = 1 << 15,
-    interpret: bool = False,
     sample_idx=None,
 ) -> KingCounts:
-    """Device provider: bf16 indicator Grams on the MXU, f32 accumulation.
+    """Device provider: bf16 indicator Grams, f32 accumulation.
 
     Exact while total variants < 2^24 (asserted); chunk calls above that.
     sample_idx (optional i32 vector) restricts the Grams to that cohort.
@@ -235,11 +234,11 @@ def king_counts_device(
         return KingCounts(z, z.copy(), z.copy(), z.copy())
     bv = min(block_variants, 1 << 24)
     if sample_idx is None:
-        out = _king_counts_device_jit(packed, num_samples, bv, interpret)
+        out = _king_counts_device_jit(packed, num_samples, bv)
     else:
         out = _king_counts_device_sel_jit(
             packed, np.asarray(sample_idx, dtype=np.int32),
-            num_samples, bv, interpret,
+            num_samples, bv,
         )
     return KingCounts(*(np.asarray(g, dtype=np.float64) for g in out))
 
@@ -255,13 +254,15 @@ def king_counts(
     if provider == "device":
         import jax
 
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         if len(jax.devices()) > 1:
             return king_counts_mesh(np.asarray(packed), num_samples, **kw)
         return king_counts_device(
             np.asarray(packed), num_samples,
-            interpret=is_interpret_backend(), **kw,
+            **kw,
         )
     return king_counts_numpy(packed, num_samples, **kw)
 
@@ -319,7 +320,7 @@ def build_king_mesh_step(
 
     packed (V, R) u8 shards as P('v', None); each device scans its local
     blocks through the indicator Grams and the four (S, S) f32 partials
-    psum over the variant axis — the only collective, 4*S^2 f32 on ICI.
+    psum over the variant axis — the only collective, 4*S^2 f32.
     Output is replicated. sample_idx (optional) restricts columns via the
     replicated gather variant. Exactness bound is per-TOTAL variant count
     as in king_counts_device (psum of exact integer f32 partials stays
@@ -328,20 +329,20 @@ def build_king_mesh_step(
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from pgen_tpu.parallel.mesh import VARIANT_AXIS
-    from pgen_tpu.pipeline.device import is_interpret_backend
+    from pgen_tpu.pipeline.device import device_backend
 
-    interpret = is_interpret_backend()
+    device_backend()
     sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
 
     def step(packed):
         def inner(packed_l):
             if sel is None:
                 grams = _king_counts_device_jit(
-                    packed_l, num_samples, block_variants, interpret
+                    packed_l, num_samples, block_variants
                 )
             else:
                 grams = _king_counts_device_sel_jit(
-                    packed_l, sel, num_samples, block_variants, interpret
+                    packed_l, sel, num_samples, block_variants
                 )
             return tuple(
                 jax.lax.psum(g, VARIANT_AXIS) for g in grams

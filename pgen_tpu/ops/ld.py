@@ -15,7 +15,7 @@ the reference has no genotype analysis at all). Two pieces:
    Grams: row tile t (band rows) against the (band x 2band) slice
    starting at the same row — ONE gemm per tile covers every in-band
    pair, 4*V*band*S MACs total. Device provider batches the tile gemms
-   into one einsum (MXU); host uses per-tile BLAS sgemm with f64 norms.
+   into one einsum; host uses per-tile BLAS sgemm with f64 norms.
 
 2. **Window-greedy prune** (host, sequential by definition): plink's
    window/step walk over the precomputed band. For each window start s
@@ -104,9 +104,9 @@ def _take_band(r2: np.ndarray, band: int) -> np.ndarray:
 
 
 def banded_r2_device(
-    packed, num_samples: int, band: int, sample_idx=None, interpret: bool = False
+    packed, num_samples: int, band: int, sample_idx=None
 ) -> np.ndarray:
-    """Batched tile Grams on the MXU: one einsum over all tiles.
+    """Batched tile Grams in f32 matmuls: one einsum over all tiles.
 
     Tiles are (band x S) against (2band x S); variants pad to a tile
     multiple with 0xFF (all-missing -> zero rows, r² = 0).
@@ -126,7 +126,7 @@ def banded_r2_device(
 
     @jax.jit
     def _tiles(pk):
-        codes = unpack_codes(pk, num_samples, interpret=interpret)
+        codes = unpack_codes(pk, num_samples)
         if sample_idx is not None:
             codes = jnp.take(codes, jnp.asarray(sample_idx), axis=1)
         called = codes != 3
@@ -167,12 +167,10 @@ def banded_r2(
     packed, num_samples: int, band: int, provider: str = "numpy", sample_idx=None
 ) -> np.ndarray:
     if provider == "device":
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
 
-        return banded_r2_device(
-            packed, num_samples, band, sample_idx,
-            interpret=is_interpret_backend(),
-        )
+        device_backend()
+        return banded_r2_device(packed, num_samples, band, sample_idx)
     return banded_r2_numpy(packed, num_samples, band, sample_idx=sample_idx)
 
 

@@ -7,14 +7,14 @@ query/filter tool — /root/reference/README.md:3-5). For each variant v,
 maximum-likelihood logistic regression of case status on
 [1, covariates, alt-dosage] over that variant's complete cases.
 
-TPU-first formulation, same trick as the linear path (ops/glm.py): with
+Matmul-first formulation, same trick as the linear path (ops/glm.py): with
 per-iteration working weights w_vs = mu(1-mu)·mask and working residual
 r_vs = (y - mu)·mask, Newton's update needs
 
     grad_v  = [sum r,  r @ C,          sum r·g]
     hess_v  = masked-weighted sums of {1, c_i, c_i c_j, g, g c_i, g^2}
 
-— all (V, S) x (S, P) matmuls per IRLS iteration (MXU work on the
+— all (V, S) x (S, P) matmuls per IRLS iteration (matmul work on the
 device provider, dgemm on host), plus a batched (k+2)-dim solve on host
 f64. Variants converge independently and retire from the active set.
 
@@ -32,7 +32,7 @@ likelihood (Firth 1993): the score gains the hat-diagonal term
 which keeps the MLE finite under separation. In the blocked masked-moment
 formulation h is three extra small (V,k)x(k,S) products against the
 inverted per-variant information matrix — the big (V,S)x(S,P) moment
-matmuls are unchanged (same MXU path on the device provider).
+matmuls are unchanged (same matmul path on the device provider).
 `firth="always"` forces Firth everywhere (plink2 `--glm firth`);
 `firth="none"` disables the rescue (plink2 `--glm no-firth`).
 
@@ -172,7 +172,7 @@ def _irls_block(
     """IRLS over one variant block; returns per-variant (n, beta (Vb, m),
     se (Vb, m), niter, converged, ok, joint_chi2). `matmul(A, B)` computes
     the masked-moment products (host dgemm by default; the device provider
-    supplies an MXU closure). `gluts` selects the genotype design columns
+    supplies a device matmul closure). `gluts` selects the genotype design columns
     (ops/glm.py MODIFIER_COLS recodes); the default is the additive model.
     """
     vb, ns = codes.shape
@@ -839,10 +839,10 @@ def glm_logistic_modifier(
 
 
 def _device_matmul():
-    """MXU closure for the per-iteration masked-moment products."""
-    from pgen_tpu.pipeline.device import ensure_compilation_cache
+    """Device closure for the per-iteration masked-moment products."""
+    from pgen_tpu.pipeline.device import device_backend
 
-    ensure_compilation_cache()  # opt-in persistent cache (device.py)
+    device_backend()
     import jax
     import jax.numpy as jnp
 
@@ -862,7 +862,7 @@ def glm_logistic(
 ) -> LogisticResult:
     """Provider dispatch. The IRLS loop is host-driven either way; the
     device provider routes the per-iteration (V,S)x(S,P) moment matmuls
-    through jnp (MXU, f32 HIGHEST) while solves stay host f64."""
+    through jnp (f32, Precision.HIGHEST) while solves stay host f64."""
     y = np.asarray(y, dtype=np.float64)
     covars = (
         np.zeros((y.shape[0], 0)) if covars is None
@@ -947,7 +947,7 @@ def _irls_int_block(
     variant block. Returns (n, beta_tests, se_tests, niter, converged)
     with test columns [g, g*c_1..g*c_k]. Three (Va,S)x(S,k+kk) moment
     GEMMs per iteration (w, w*g, w*g^2 against [C | CC]) — the same
-    masked-moment shape as the base model, so the device provider's MXU
+    masked-moment shape as the base model, so the device provider's matmul
     closure applies unchanged."""
     vb, ns = codes.shape
     k = covars.shape[1]

@@ -1,4 +1,4 @@
-"""2-bit genotype pack: device twin of the unpack kernel.
+"""2-bit genotype pack: device twin of the unpack decode.
 
 Packs a (V, S) u8 code matrix (values 0..3) into mode-0x02 records of
 ceil(2S/8) bytes, LSB-first within each byte — the inverse of
@@ -6,49 +6,31 @@ unpack.unpack_codes and the device-side counterpart of
 formats/writer.pack_codes. Enables on-device .pgen re-emission (pgen output
 is "future work" in the reference, /root/reference/README.md:217-219).
 
-Same relayout-free design as unpack: the code matrix is bitcast (XLA-level,
-free) to (V, R) u32 words — 4 consecutive sample codes per little-endian
-word — and the kernel reduces each word to its record byte elementwise:
+The code matrix is bitcast to (V, R) u32 words — 4 consecutive sample codes
+per little-endian word — and each word reduces to its record byte
+elementwise:
 
     byte_j = sum_k ((w_j >> 8k) & 3) << 2k
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from pgen_tpu.ops.unpack import _block_rows, bytes_to_words
+from pgen_tpu.ops.unpack import bytes_to_words
 
 
-def _pack_kernel(in_ref, out_ref):
-    w = in_ref[:]
-    b = (w & 0x3)
-    b |= ((w >> 8) & 0x3) << 2
-    b |= ((w >> 16) & 0x3) << 4
-    b |= ((w >> 24) & 0x3) << 6
-    out_ref[:] = b.astype(jnp.uint8)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def pack_codes_device(codes: jnp.ndarray, interpret: bool = False):
+@jax.jit
+def pack_codes_device(codes: jnp.ndarray):
     """Pack (V, S) u8 codes into (V, ceil(S/4)) record bytes on device."""
-    nvar, nsamp = codes.shape
+    nsamp = codes.shape[1]
     rec = (nsamp + 3) // 4
     if nsamp != 4 * rec:
         codes = jnp.pad(codes, ((0, 0), (0, 4 * rec - nsamp)))
-    words = bytes_to_words(codes)  # (V, rec) u32
-    tv = _block_rows(rec * (4 + 1 + 4 * 4))
-    grid = (pl.cdiv(nvar, tv),)
-    return pl.pallas_call(
-        _pack_kernel,
-        out_shape=jax.ShapeDtypeStruct((nvar, rec), jnp.uint8),
-        grid=grid,
-        in_specs=[pl.BlockSpec((tv, rec), lambda i: (i, 0), memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((tv, rec), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(words)
+    w = bytes_to_words(codes)  # (V, rec) u32
+    b = w & 0x3
+    b |= ((w >> 8) & 0x3) << 2
+    b |= ((w >> 16) & 0x3) << 4
+    b |= ((w >> 24) & 0x3) << 6
+    return b.astype(jnp.uint8)

@@ -1,4 +1,4 @@
-"""Principal components of the genotype matrix via the GRM (MXU workload).
+"""Principal components of the genotype matrix via the GRM (matmul workload).
 
 The plink2 `--pca` analog (extension — the reference is a query/filter
 tool, /root/reference/README.md:3-5). Method: the exact small-cohort path
@@ -15,7 +15,7 @@ no signal; z rows forced to 0, not counted in the divisor).
     GRM = Z^T Z / M_used     (M_used = polymorphic variant count)
 
 GRM accumulation is one f32 Gram matmul per variant block (2*V*S^2 MACs)
-— MXU work on the device provider, blocked BLAS on host. The S x S
+— matmul work on the device provider, blocked BLAS on host. The S x S
 eigendecomposition runs on host (LAPACK eigh, f64): S ~ 10^3-10^4 makes
 it milliseconds-to-seconds, far off the critical path.
 
@@ -104,9 +104,9 @@ def _standardize_block_jnp(codes):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "block_variants", "interpret")
+    jax.jit, static_argnames=("num_samples", "block_variants")
 )
-def _grm_device_jit(packed, sel, num_samples, block_variants, interpret):
+def _grm_device_jit(packed, sel, num_samples, block_variants):
     """Blocked scan: unpack -> standardize -> f32 Gram accumulate.
 
     sel is an i32 column-gather vector or None (keep-all fast path, no
@@ -124,13 +124,13 @@ def _grm_device_jit(packed, sel, num_samples, block_variants, interpret):
 
     def body(carry, blk):
         acc, m = carry
-        codes = unpack_codes(blk, num_samples, interpret=interpret)
+        codes = unpack_codes(blk, num_samples)
         if sel is not None:
             codes = jnp.take(codes, sel, axis=1)
         z, used = _standardize_block_jnp(codes)
-        # HIGHEST: true-f32 MXU passes — the TPU default decomposes f32
-        # matmuls into single bf16 passes, whose ~5e-4 relative error is
-        # too coarse for eigenvector work (KING's 0/1 Grams are exact in
+        # HIGHEST: full f32 — a default-precision f32 matmul may run in
+        # TF32 on the GPU, whose ~1e-3 relative error is too coarse for
+        # eigenvector work (KING's 0/1 Grams are exact in
         # bf16; standardized z values are not)
         acc = acc + jnp.matmul(
             z.T, z,
@@ -149,14 +149,13 @@ def grm_device(
     packed,
     num_samples: int,
     block_variants: int = 1 << 14,
-    interpret: bool = False,
     sample_idx=None,
 ) -> GrmResult:
     if packed.shape[0] == 0:
         ns = num_samples if sample_idx is None else len(sample_idx)
         return GrmResult(np.zeros((ns, ns), dtype=np.float64), 0)
     sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
-    acc, m = _grm_device_jit(packed, sel, num_samples, block_variants, interpret)
+    acc, m = _grm_device_jit(packed, sel, num_samples, block_variants)
     return GrmResult(np.asarray(acc, dtype=np.float64), int(m))
 
 
@@ -168,13 +167,15 @@ def grm(packed, num_samples: int, provider: str = "numpy", **kw) -> GrmResult:
     if provider == "device":
         import jax
 
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         if len(jax.devices()) > 1:
             return grm_mesh(np.asarray(packed), num_samples, **kw)
         return grm_device(
             np.asarray(packed), num_samples,
-            interpret=is_interpret_backend(), **kw,
+            **kw,
         )
     return grm_numpy(packed, num_samples, **kw)
 
@@ -267,7 +268,7 @@ def pca_approx(
         V = Q W[:, :k]
 
     Every data touch is a tall-skinny matmul pair per variant block —
-    z_b @ Q (bv x L) then z_b^T @ that (S x L accumulate) — MXU-shaped on
+    z_b @ Q (bv x L) then z_b^T @ that (S x L accumulate) — matmul-shaped on
     the device provider, dgemm on host; the only O(S) state is the (S, L)
     subspace, so S ~ 10^5+ cohorts run in bounded memory where the exact
     S x S Gram (plink2's default small-cohort path, grm()) cannot.
@@ -346,9 +347,9 @@ def _make_approx_pass_device(packed, num_samples, sample_idx, block_variants):
     collective shape as the mesh GRM step, but L-wide instead of S-wide."""
     import jax.numpy as jnp
 
-    from pgen_tpu.pipeline.device import is_interpret_backend
+    from pgen_tpu.pipeline.device import device_backend
 
-    interpret = is_interpret_backend()
+    device_backend()
     sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
     nvar = int(packed.shape[0])
     bv = min(block_variants or (1 << 14), max(nvar, 1))
@@ -367,7 +368,7 @@ def _make_approx_pass_device(packed, num_samples, sample_idx, block_variants):
 
         def step(packed_g, q):
             def inner(packed_l, q_l):
-                y, m = _approx_pass_jit(packed_l, q_l, sel, num_samples, bv, interpret)
+                y, m = _approx_pass_jit(packed_l, q_l, sel, num_samples, bv)
                 return (
                     jax.lax.psum(y, VARIANT_AXIS),
                     jax.lax.psum(m, VARIANT_AXIS),
@@ -399,7 +400,7 @@ def _make_approx_pass_device(packed, num_samples, sample_idx, block_variants):
 
     def pass_fn(q):
         y, m = _approx_pass_jit(
-            packed_a, q.astype(np.float32), sel, num_samples, bv, interpret
+            packed_a, q.astype(np.float32), sel, num_samples, bv
         )
         return np.asarray(y, dtype=np.float64), int(m)
 
@@ -407,9 +408,9 @@ def _make_approx_pass_device(packed, num_samples, sample_idx, block_variants):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "block_variants", "interpret")
+    jax.jit, static_argnames=("num_samples", "block_variants")
 )
-def _approx_pass_jit(packed, q, sel, num_samples, block_variants, interpret):
+def _approx_pass_jit(packed, q, sel, num_samples, block_variants):
     """y = sum_blocks z_b^T (z_b q), m = polymorphic count (f32 HIGHEST)."""
     import jax.numpy as jnp
 
@@ -423,7 +424,7 @@ def _approx_pass_jit(packed, q, sel, num_samples, block_variants, interpret):
 
     def body(carry, blk):
         acc, m = carry
-        codes = unpack_codes(blk, num_samples, interpret=interpret)
+        codes = unpack_codes(blk, num_samples)
         if sel is not None:
             codes = jnp.take(codes, sel, axis=1)
         z, used = _standardize_block_jnp(codes)
@@ -462,15 +463,15 @@ def build_grm_mesh_step(
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from pgen_tpu.parallel.mesh import VARIANT_AXIS
-    from pgen_tpu.pipeline.device import is_interpret_backend
+    from pgen_tpu.pipeline.device import device_backend
 
-    interpret = is_interpret_backend()
+    device_backend()
     sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
 
     def step(packed):
         def inner(packed_l):
             acc, m = _grm_device_jit(
-                packed_l, sel, num_samples, block_variants, interpret
+                packed_l, sel, num_samples, block_variants
             )
             return (
                 jax.lax.psum(acc, VARIANT_AXIS),

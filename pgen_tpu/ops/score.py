@@ -1,4 +1,4 @@
-"""Polygenic scoring: genotype-matrix x weight-matrix products (MXU workload).
+"""Polygenic scoring: genotype-matrix x weight-matrix products (matmul workload).
 
 The plink2 `--score` analog (extension — the reference is a query/filter
 tool, /root/reference/README.md:3-5). Given per-variant effect weights
@@ -14,7 +14,7 @@ mean dosage over called samples, plink2's default) or contribute 0 with
 per-sample denominator shrinks accordingly.
 
 The whole computation is one (V, S)^T @ (V, K) matmul per variant block —
-MXU work on the device provider (f32 accumulation, Precision.HIGHEST:
+matmul work on the device provider (f32 accumulation, Precision.HIGHEST:
 real-valued weights need true-f32 passes, same reasoning as ops/pca.py),
 blocked BLAS dgemm on host. Side outputs ride the same pass: per-sample
 effect-allele dosage sums and the allele-count denominators.
@@ -105,12 +105,10 @@ def score_numpy(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("num_samples", "mean_impute", "block_variants",
-                              "interpret")
+    jax.jit, static_argnames=("num_samples", "mean_impute", "block_variants")
 )
 def _score_device_jit(
     packed, weights, flip, sel, num_samples, mean_impute, block_variants,
-    interpret,
 ):
     """Blocked scan: unpack -> effect dosage -> f32 matmul accumulate.
 
@@ -133,7 +131,7 @@ def _score_device_jit(
     def body(carry, blk):
         sums, dosage, ct, m = carry
         pk, wb, fb = blk
-        codes = unpack_codes(pk, num_samples, interpret=interpret)
+        codes = unpack_codes(pk, num_samples)
         if sel is not None:
             codes = jnp.take(codes, sel, axis=1)
         cal = codes != 3
@@ -180,7 +178,6 @@ def score_device(
     flip,
     mean_impute: bool = True,
     block_variants: int = 1 << 14,
-    interpret: bool = False,
     sample_idx=None,
 ) -> ScoreResult:
     ns = num_samples if sample_idx is None else len(sample_idx)
@@ -193,7 +190,7 @@ def score_device(
     sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
     sums, dosage, ct, m = _score_device_jit(
         np.asarray(packed, np.uint8), weights, np.asarray(flip, bool), sel,
-        num_samples, mean_impute, block_variants, interpret,
+        num_samples, mean_impute, block_variants,
     )
     ct = np.asarray(ct, np.int64)
     if ct.ndim == 0:  # mean-impute path counts one scalar for all samples
@@ -285,14 +282,16 @@ def score(
     if provider == "device":
         import jax
 
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         if len(jax.devices()) > 1:
             return score_mesh(np.asarray(packed), num_samples, weights,
                               flip, **kw)
         return score_device(
             np.asarray(packed), num_samples, weights, flip,
-            interpret=is_interpret_backend(), **kw,
+            **kw,
         )
     return score_numpy(packed, num_samples, weights, flip, **kw)
 
@@ -358,16 +357,16 @@ def build_score_mesh_step(
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from pgen_tpu.parallel.mesh import VARIANT_AXIS
-    from pgen_tpu.pipeline.device import is_interpret_backend
+    from pgen_tpu.pipeline.device import device_backend
 
-    interpret = is_interpret_backend()
+    device_backend()
     sel = None if sample_idx is None else np.asarray(sample_idx, np.int32)
 
     def step(packed, weights, flip):
         def inner(packed_l, weights_l, flip_l):
             sums, dosage, ct, m = _score_device_jit(
                 packed_l, weights_l, flip_l, sel, num_samples,
-                mean_impute, block_variants, interpret,
+                mean_impute, block_variants,
             )
             return (
                 jax.lax.psum(sums, VARIANT_AXIS),

@@ -1,7 +1,7 @@
 """Host (numpy) 2-bit unpack — jax-free by design.
 
-These live apart from ops/unpack.py (the Pallas kernels) so that host
-pipelines importing them never pay the ~1 s jax/pallas import: the CLI's
+These live apart from ops/unpack.py (the jax decode) so that host
+pipelines importing them never pay the ~1 s jax import: the CLI's
 default native path runs whole filters without touching jax at all.
 Semantics are the reference extraction (/root/reference/src/pfile.rs:
 171-175): byte ``s // 4``, bits ``(s % 4) * 2``, LSB-first.

@@ -1,12 +1,12 @@
 """Multi-host deployment glue: jax.distributed + per-host shard filtering.
 
 SURVEY.md §5 "Distributed communication backend": the reference is one
-process; the TPU-native design runs one process per host, each owning a
+process; the design runs one process per host, each owning a
 contiguous variant-range shard. Control-plane setup is jax.distributed
 (coordinator rendezvous); the data plane needs NO communication for the
 ordered merge (offsets derive from metadata everywhere — parallel/shard.py)
 — collectives appear only in the on-device mesh step (parallel/mesh.py),
-riding ICI.
+running on the device mesh.
 
 Two deployment modes:
 
@@ -36,7 +36,7 @@ def initialize_from_env(
 ) -> tuple:
     """Initialize jax.distributed; returns (process_id, num_processes).
 
-    Arguments default to JAX's env autodetection (TPU pods) or the
+    Arguments default to JAX's env autodetection or the
     PGEN_TPU_COORDINATOR / PGEN_TPU_NUM_PROCS / PGEN_TPU_PROC_ID vars.
     """
     import jax

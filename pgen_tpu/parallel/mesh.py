@@ -1,9 +1,10 @@
-"""Device-mesh sharded filter step: the multi-chip compute path.
+"""Device-mesh sharded filter step: the multi-GPU compute path.
 
 The workload has one long axis — variants (SURVEY.md §5 "Long-context"):
 the genotype matrix shards over it as P('v', None) on a 1-D
-``jax.sharding.Mesh``; the sample axis stays whole per chip (it is the lane
-dimension of the decode kernels). One jitted step runs, per shard:
+``jax.sharding.Mesh``; the sample axis stays whole per device. The mesh is
+1-D because every GPU of a host reaches every other at the same rate over
+NVLink. One jitted step runs, per shard:
 
     predicate mask (device, over sharded padded column tensors)
     -> stable compacting reorder (kept variants first, original order)
@@ -13,8 +14,8 @@ dimension of the decode kernels). One jitted step runs, per shard:
        output row offset — SURVEY.md §7 L4)
 
 Outputs stay sharded; hosts write their shards at the derived offsets.
-Communication rides ICI only (a ndev-long i32 all-gather per step — the
-variant text itself never crosses chips).
+The only collective is a ndev-long i32 all-gather per step (the variant
+text itself never crosses devices).
 """
 
 from __future__ import annotations
@@ -139,11 +140,9 @@ def _local_pipeline(packed_l, mask_l, sample_sel, compact: bool = True):
 def _local_pipeline_planes(packed_l, mask_l, compact: bool = True):
     """Plane-form shard-local compute: keep-all-samples fast path.
 
-    The interleaved text layout (byte j -> output u32 lanes 4j..4j+3) is a
-    lane-expansion relayout that costs ~10x when materialized as a jit
-    output on TPU (measured 16.6 ms vs 1.5 ms per 64Ki x 640 block). So
-    the step emits FOUR dense planes instead — plane k holds the text
-    word of sample 4j+k at lane j, pure elementwise from the packed byte:
+    Instead of the interleaved text layout (byte j -> output u32 words
+    4j..4j+3) the step emits FOUR dense planes — plane k holds the text
+    word of sample 4j+k at word j, pure elementwise from the packed byte:
 
         code_k = (byte >> 2k) & 3;  t_k = text_word(code_k)
 
@@ -211,7 +210,7 @@ def build_mesh_pipeline_step(
                     compact=not precompacted,
                 )
             counts = jax.lax.all_gather(count, VARIANT_AXIS)
-            # replicate the mask (vb bits over ICI): every HOST needs the
+            # replicate the mask (vb bits): every HOST needs the
             # whole block's mask for its row-offset arithmetic — with
             # process-sharded devices a P('v') mask would have
             # non-addressable shards. (Row offsets are cumsum(counts) on

@@ -1,7 +1,7 @@
 """Variant-dimension sharding with an order-preserving merge.
 
 The reference is strictly single-threaded (SURVEY.md §2 "Parallelism").
-The TPU-native design shards the VARIANT axis — the long axis, up to ~10^6
+This engine shards the VARIANT axis — the long axis, up to ~10^6
 rows for chr22 — across workers/hosts, per SURVEY.md §7 L4:
 
 * metadata (.pvar/.psam) is small and loaded by every worker, so predicate

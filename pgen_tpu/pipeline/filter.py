@@ -17,8 +17,8 @@ memory map, and each block's text is produced by one of three execution
 providers:
 
   native  — fused C++ LUT emission (one memory pass; default on hosts)
-  device  — Pallas unpack/text kernels on the JAX default backend, host
-            assembly of row prefixes
+  device  — jax text planes on the GPU (pipeline/device.py checks the
+            backend), host assembly of row prefixes
   numpy   — pure-numpy oracle/fallback
 
 Output bytes are identical across providers (tests assert it).
@@ -61,6 +61,10 @@ def _resolve_provider(provider: str) -> str:
     if provider == "native" and not HAVE_NATIVE:
         log.warning("native provider unavailable (no C++ toolchain); using numpy")
         return "numpy"
+    if provider == "device":
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
     return provider
 
 
@@ -349,9 +353,8 @@ def _emit_block(
                     text_host, prefix_buf, prefix_off, out_view
                 )
             return _assemble_rows_numpy(text_host, prefix_buf, prefix_off, out_view)
-        # keep-all: plane-form emission — the interleaved text tensor costs
-        # ~10x to materialize on TPU (ops/gt_text.planes_from_packed); the
-        # host assembler interleaves while copying rows
+        # keep-all: plane-form emission (ops/gt_text.planes_from_packed);
+        # the host assembler interleaves while copying rows
         planes = [np.asarray(p) for p in genotype_text_planes(dev_packed)]
         gt_len = 4 * n_kept_samples
         if HAVE_NATIVE:

@@ -4,7 +4,7 @@ An extension — the reference's scope stops at query/filter
 (/root/reference/README.md:3-5). Accepts the same include/exclude
 predicates, regions, and sample lists as `filter`, computes the five
 IBS pair-count Gram matrices on the chosen provider (ops/ibd.py — the
-MXU path on TPU), estimates Z0/Z1/Z2/PI_HAT by plink's method of
+GPU matmul path), estimates Z0/Z1/Z2/PI_HAT by plink's method of
 moments from the kept cohort's allele frequencies, and emits a
 .genome-flavored TSV:
 

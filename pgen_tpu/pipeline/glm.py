@@ -9,7 +9,7 @@ case/control phenotypes (1/2 plink coding, or 0/1) run LOGISTIC
 (batched IRLS, ops/logistic.py; Wald Z, OR output), quantitative ones
 run LINEAR (closed-form OLS, ops/glm.py; Student-t); `--linear` /
 `--logistic` force either. The per-variant moments are masked matmuls
-on the chosen provider (MXU on device, BLAS on host); the (k+2)-dim
+on the chosen provider (GPU matmuls on device, BLAS on host); the (k+2)-dim
 solves and p-values run batched on host f64.
 
 Phenotype / covariates come from psam columns:

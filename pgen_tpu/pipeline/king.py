@@ -4,7 +4,7 @@ The plink2 `--make-king-table` analog (an extension — the reference's
 scope stops at query/filter, /root/reference/README.md:3-5). Accepts the
 same include/exclude predicates, regions, and sample lists as `filter`,
 computes the four pair-count Gram matrices on the chosen provider
-(ops/king.py — the MXU path on TPU), and emits a `.kin0`-flavored TSV:
+(ops/king.py — the GPU matmul path), and emits a `.kin0`-flavored TSV:
 
     #IID1  IID2  NSNP  HETHET  IBS0  KINSHIP
 

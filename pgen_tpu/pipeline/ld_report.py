@@ -2,7 +2,7 @@
 
 An extension — the reference's scope stops at query/filter
 (/root/reference/README.md:3-5). Reuses the banded-r² Gram machinery
-that backs prune/clump (ops/ld.py: one gemm per band tile, MXU-shaped
+that backs prune/clump (ops/ld.py: one gemm per band tile, matmul-shaped
 on the device provider) and emits plink 1.9's .ld layout:
 
     CHR_A BP_A SNP_A CHR_B BP_B SNP_B R2

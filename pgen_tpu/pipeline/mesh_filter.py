@@ -1,6 +1,6 @@
 """End-to-end device-mesh filter: the flagship multi-chip path.
 
-This is the TPU-native rendering of the reference's `filter` flagship call
+This is the device-mesh rendering of the reference's `filter` flagship call
 stack (/root/reference/src/pfile.rs:104-194) over a `jax.sharding.Mesh`
 (SURVEY.md §7 L4). Per variant block:
 
@@ -11,7 +11,7 @@ stack (/root/reference/src/pfile.rs:104-194) over a `jax.sharding.Mesh`
           outside the device subset) -> stable kept-first compaction
           (skipped when the host pre-gathered kept rows) -> four GT text
           planes, elementwise from the packed bytes
-    collective: all_gather of per-shard kept counts over ICI -> every
+    collective: all_gather of per-shard kept counts -> every
           shard's global output row offset (the ordered merge is pure
           arithmetic; genotype text never crosses chips)
     host: each process reads back only its addressable shards' kept rows
@@ -105,9 +105,11 @@ def filter_to_vcf_mesh(
         build_mesh_pipeline_step,
         make_mesh,
     )
+    from pgen_tpu.pipeline.device import device_backend
     from pgen_tpu.query.compile_device import DeviceFallback
     from pgen_tpu.query.parser import parse
 
+    device_backend()
     timer = StageTimer()
     if mesh is None:
         mesh = make_mesh()
@@ -206,15 +208,14 @@ def filter_to_vcf_mesh(
     # so ONE compiled step serves all blocks.
     vb = min(block_variants, max(total_rows, 1))
     vb += (-vb) % ndev
-    # Lane-align the record dimension: R=rec is arbitrary (ceil(2S/8));
-    # padding to a 128-byte multiple gives the elementwise kernels whole
-    # lane tiles — measured ~2x step wall time on v5e for +2% data. The
+    # Pad the record dimension (R = ceil(2S/8)) to a 128-byte multiple; the
     # pad bytes decode to "\t0/0" text that the drain slice discards.
+    # Whether the pad pays on the GPU is not measured yet.
     rec_pad = rec + (-rec) % 128
 
-    # Plane-form step for ALL runs: four dense (v, R) u32 text planes
-    # materialize ~10x faster than the interleaved (v, 4R) tensor (see
-    # parallel/mesh.py _local_pipeline_planes). The host assembler
+    # Plane-form step for ALL runs: four dense (v, R) u32 text planes in
+    # place of the interleaved (v, 4R) tensor (see parallel/mesh.py
+    # _local_pipeline_planes). The host assembler
     # interleaves planes while copying rows; sample subsets become a
     # per-kept-sample gather there (planes[s%4][s//4]) instead of an
     # on-device column gather.

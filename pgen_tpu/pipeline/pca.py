@@ -2,7 +2,7 @@
 
 plink2 `--pca` analog (exact GRM + eigh path — what plink2 itself defaults
 to for cohorts this size). The GRM accumulates on the chosen provider
-(ops/pca.py: MXU Gram matmuls on device, blocked BLAS on host); the S x S
+(ops/pca.py: Gram matmuls on the GPU, blocked BLAS on host); the S x S
 eigendecomposition runs on host LAPACK. Emits the plink conventions:
 
     OUT.eigenvec   #IID  PC1 .. PCK      (unit-norm eigenvector columns)

@@ -51,12 +51,12 @@ def _subset_block(packed_blk, sam_idx, n_total_samples, provider):
 
         from pgen_tpu.ops.pack import pack_codes_device
         from pgen_tpu.ops.unpack import unpack_codes
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
 
-        interp = is_interpret_backend()
-        codes = unpack_codes(jnp.asarray(packed_blk), n_total_samples, interpret=interp)
+        device_backend()
+        codes = unpack_codes(jnp.asarray(packed_blk), n_total_samples)
         sub = codes[:, jnp.asarray(sam_idx)]
-        return np.asarray(pack_codes_device(sub, interpret=interp))
+        return np.asarray(pack_codes_device(sub))
     from pgen_tpu.native import HAVE_NATIVE, native
 
     if provider == "native" and HAVE_NATIVE:

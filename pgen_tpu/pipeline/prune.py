@@ -111,7 +111,7 @@ def prune(
     # counts keep the native LUT engine; the gemm has no native path
     stat_provider = provider
     if provider == "native":
-        provider = "numpy"  # BLAS/MXU are the gemm engines (ops/ld.py)
+        provider = "numpy"  # BLAS/GPU matmuls are the gemm engines (ops/ld.py)
     timer = StageTimer()
 
     header = read_pgen_header(f"{pfile_prefix}.pgen")

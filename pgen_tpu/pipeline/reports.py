@@ -15,7 +15,7 @@ All reports are one pass over the packed matrix: per-variant rows come
 from the (V, 4) genotype-count reduction (ops/gt_stats), per-sample rows
 from the column-axis reduction, and `het`'s per-sample expected-hom sums
 are a (V,) x (V, S) masked matvec over the called mask — BLAS on host
-(the default), MXU-shaped on the device provider. The HWE P column uses
+(the default), matmul-shaped on the device provider. The HWE P column uses
 the exact mid-p-less SNPHWE test (ops/hwe, plink/Wigginton algorithm).
 
 Conventions pinned here (documented, testable):

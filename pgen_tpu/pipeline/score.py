@@ -6,7 +6,7 @@ per line: a variant ID, the effect allele, and one or more numeric effect
 weights. Variants are matched to the fileset by the pvar ID column; the
 effect allele must equal REF or ALT (REF matches run "flipped": dosage =
 2 - alt count). The per-sample score sums are blocked matmuls on the
-chosen provider (ops/score.py: MXU on device, BLAS on host).
+chosen provider (ops/score.py: GPU matmuls on device, BLAS on host).
 
 Score-file shape (whitespace- or tab-separated):
   - column `var_id_col` (1-based, default 1): variant ID

@@ -27,7 +27,7 @@ VCF text must cross the host either way):
           as the same unphased code, as plink2 does for hard-call-only
           storage) and ``GT:...`` subfields (only the leading GT is read).
   pack    4 codes/byte LSB-first (the C10 geometry, pfile.rs:171-183) via
-          the native C++ packer, numpy bit-ops, or the Pallas pack kernel
+          the native C++ packer, numpy bit-ops, or the jnp pack on the device
           (``--provider device``).
   pvar    each row's first 8 fields are emitted by span-gather — the text
           is never re-formatted, so CHROM/POS/.../INFO bytes round-trip
@@ -312,10 +312,12 @@ def _pack(codes: np.ndarray, provider: str):
         import jax.numpy as jnp
 
         from pgen_tpu.ops.pack import pack_codes_device
-        from pgen_tpu.pipeline.device import is_interpret_backend
+        from pgen_tpu.pipeline.device import device_backend
+
+        device_backend()
 
         rec = (2 * codes.shape[1] + 7) // 8
-        out = np.asarray(pack_codes_device(jnp.asarray(codes), interpret=is_interpret_backend()))
+        out = np.asarray(pack_codes_device(jnp.asarray(codes)))
         return np.ascontiguousarray(out[:, :rec])
     from pgen_tpu.formats.writer import pack_codes
 

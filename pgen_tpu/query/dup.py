@@ -1,6 +1,6 @@
 """Duplicate-variant extension variables for the predicate language.
 
-plink2's `--rm-dup` removes variants that share an ID; the TPU build
+plink2's `--rm-dup` removes variants that share an ID; this engine
 exposes the underlying group facts as whole-column BOOLEAN variables so
 every pipeline (single-process, worker shards, device mesh) inherits
 them through the ordinary query string — no new parameters thread

@@ -1,8 +1,7 @@
 """Per-stage wall-clock + bytes-moved counters.
 
-The reference has no profiling at all (SURVEY.md §5); the TPU build reports
-wall time and achieved GB/s per pipeline stage so kernel throughput can be
-compared against the HBM roofline (BASELINE.md targets).
+The reference has no profiling at all (SURVEY.md §5); this engine reports
+wall time and achieved GB/s per pipeline stage.
 """
 
 import time

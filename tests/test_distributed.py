@@ -215,7 +215,7 @@ def test_two_process_mesh_filter_end_to_end(tiny_fileset, tmp_path):
 
 @pytest.mark.slow
 def test_two_process_mesh_filter_gz_parts_merge(tiny_fileset, tmp_path):
-    """.gz across a PROCESS boundary (VERDICT r2 item 5): each process
+    """.gz across a PROCESS boundary: each process
     writes standalone per-(block, shard) BGZF parts, process 0 merges them
     in global order + EOF + tabix index; the merged stream must decompress
     byte-equal to the oracle and leave no part files behind."""

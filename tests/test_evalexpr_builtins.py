@@ -1,4 +1,4 @@
-"""Enumeration of the evalexpr 11.3.0 builtin surface (VERDICT r2 item 4).
+"""Enumeration of the evalexpr 11.3.0 builtin surface.
 
 The reference evaluates every `-i`/`--include-var`/`--include-sam`/`-f`
 expression with evalexpr 11.3.0 (/root/reference/Cargo.toml:15;

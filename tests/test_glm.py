@@ -84,8 +84,7 @@ def test_glm_device_moments_match_numpy(tmp_path):
     covars = rng.normal(size=(9, 2))
     packed = _pack(codes, tmp_path)
     ref = glm_moments_numpy(packed, 9, y, covars)
-    got = glm_moments_device(packed, 9, y, covars, block_variants=16,
-                             interpret=True)
+    got = glm_moments_device(packed, 9, y, covars, block_variants=16)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)
     # end-to-end stats agree at f32-moment precision
@@ -385,7 +384,7 @@ def test_glm_device_centering_large_covars(tmp_path):
     packed = _pack(codes, tmp_path)
     ref = glm_solve(glm_moments_numpy(packed, ns, y, covars), 2)
     got = glm_solve(
-        glm_moments_device(packed, ns, y, covars, interpret=True), 2
+        glm_moments_device(packed, ns, y, covars), 2
     )
     np.testing.assert_allclose(got.beta, ref.beta, rtol=1e-3, atol=1e-5)
     np.testing.assert_allclose(got.se, ref.se, rtol=1e-3, atol=1e-5)

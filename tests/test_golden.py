@@ -1,4 +1,4 @@
-"""Frozen golden outputs (SURVEY.md §4; VERDICT round-1 item 3).
+"""Frozen golden outputs (SURVEY.md §4).
 
 Unlike the differential tests (which compare against tests/oracle.py — an
 independent implementation but same-author), these expectations are
@@ -163,7 +163,7 @@ def test_basic1_frozen_hashes(basic1_prefix, tmp_path):
     ]
 
 
-# -- frozen king/glm conventions (VERDICT r2 weak #4) ------------------------
+# -- frozen king/glm conventions ------------------------
 #
 # The king --cutoff greedy order and the glm column layout are "plink2
 # conventions by construction" — unverifiable against a plink2 binary in

@@ -217,7 +217,7 @@ class TestSampleCounts:
         assert np.array_equal(sample_counts_numpy(packed, ns), ref)
         assert np.array_equal(sample_counts(packed, ns, "native"), ref)
         assert np.array_equal(
-            np.asarray(sample_counts_device(packed, ns, interpret=True)), ref
+            np.asarray(sample_counts_device(packed, ns)), ref
         )
 
     def test_pad_bits_excluded(self):

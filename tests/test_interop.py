@@ -1,7 +1,7 @@
 """Differential validation against REAL external binaries (plink2,
 bcftools) when they exist on PATH — skipped otherwise, so the suite
-self-upgrades the day the environment grows the toolchain (VERDICT r3
-item 8; the reference's correctness story is "matches plink2 export",
+self-upgrades the day the environment grows the toolchain (the
+reference's correctness story is "matches plink2 export",
 /root/reference/data/random1/random1.log:3-5).
 
 Run `pytest -k interop` to see these as skipped-not-failed here.

@@ -45,7 +45,7 @@ def test_device_matches_oracle(shape, tmp_path):
     codes = rng.integers(0, 4, size=shape, dtype=np.uint8)
     packed = _pack(codes, tmp_path)
     ref = king_counts_reference(codes)
-    got = king_counts_device(packed, shape[1], block_variants=16, interpret=True)
+    got = king_counts_device(packed, shape[1], block_variants=16)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
 
@@ -57,7 +57,7 @@ def test_device_sample_subset(tmp_path):
     sel = np.array([0, 3, 4, 9, 10], dtype=np.int32)
     ref = king_counts_reference(codes[:, sel])
     got = king_counts_device(
-        packed, 11, block_variants=16, interpret=True, sample_idx=sel
+        packed, 11, block_variants=16, sample_idx=sel
     )
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)

@@ -60,11 +60,11 @@ def test_banded_r2_device_matches_numpy(tmp_path):
     codes = rng.integers(0, 4, size=(30, 7), dtype=np.uint8)
     packed = _pack(codes, tmp_path)
     ref = banded_r2_numpy(packed, 7, 6)
-    got = banded_r2_device(packed, 7, 6, interpret=True)
+    got = banded_r2_device(packed, 7, 6)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
     sel = np.array([0, 2, 5, 6], dtype=np.int32)
     ref_s = banded_r2_numpy(packed, 7, 6, sample_idx=sel)
-    got_s = banded_r2_device(packed, 7, 6, sample_idx=sel, interpret=True)
+    got_s = banded_r2_device(packed, 7, 6, sample_idx=sel)
     np.testing.assert_allclose(got_s, ref_s, rtol=1e-4, atol=1e-6)
 
 

@@ -1,4 +1,4 @@
-"""End-to-end device-mesh filter (VERDICT round-1 item 1).
+"""End-to-end device-mesh filter.
 
 `filter_to_vcf_mesh` — the function `pgen-tpu filter --provider device`
 drives — must produce byte-identical VCFs to the host providers from an
@@ -132,7 +132,7 @@ def test_cli_provider_device_uses_mesh(fileset, tmp_path, monkeypatch):
     ],
 )
 def test_mesh_gz_matches_host(fileset, tmp_path, vq, sq):
-    """.gz on the mesh path (VERDICT r2 item 5): the BGZF stream must
+    """.gz on the mesh path: the BGZF stream must
     decompress byte-equal to the host path's output."""
     import gzip
 
@@ -194,7 +194,7 @@ def test_mesh_gz_index_view_roundtrip(fileset, tmp_path):
 
 def test_graft_dryrun_drives_mesh_filter():
     """The driver's multichip dryrun must exercise the same end-to-end
-    function the CLI calls (VERDICT item 1 'done' criterion)."""
+    function the CLI calls."""
     import inspect
 
     import __graft_entry__ as g

@@ -60,7 +60,7 @@ def test_grm_device_matches_numpy(tmp_path):
     codes = rng.integers(0, 4, size=(50, 9), dtype=np.uint8)
     packed = _pack(codes, tmp_path)
     ref = grm_numpy(packed, 9)
-    got = grm_device(packed, 9, block_variants=16, interpret=True)
+    got = grm_device(packed, 9, block_variants=16)
     assert got.m_used == ref.m_used
     np.testing.assert_allclose(got.grm_sum, ref.grm_sum, rtol=2e-5, atol=2e-5)
 
@@ -74,7 +74,7 @@ def test_grm_sample_subset(tmp_path):
     got = grm_numpy(packed, 10, sample_idx=sel)
     assert got.m_used == m_ref
     np.testing.assert_allclose(got.grm_sum, ref, rtol=1e-12, atol=1e-12)
-    dev = grm_device(packed, 10, interpret=True, sample_idx=sel,
+    dev = grm_device(packed, 10, sample_idx=sel,
                      block_variants=16)
     assert dev.m_used == m_ref
     np.testing.assert_allclose(dev.grm_sum, ref, rtol=2e-5, atol=2e-5)
@@ -223,7 +223,7 @@ def _structured_codes(rng, nv, ns, ngroups=3):
 
 def test_pca_approx_matches_exact(tmp_path):
     """Randomized subspace iteration vs the exact GRM + eigh path at
-    basic1-like scale: leading eigenpairs to rtol 1e-3 (VERDICT item 7)."""
+    basic1-like scale: leading eigenpairs to rtol 1e-3."""
     from pgen_tpu.ops.pca import grm_numpy, pca_approx, pca_from_grm
 
     rng = np.random.default_rng(42)

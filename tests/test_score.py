@@ -71,7 +71,7 @@ def test_score_device_matches_numpy(mean_impute, tmp_path):
     packed = _pack(codes, tmp_path)
     ref = score_numpy(packed, 9, w, flip, mean_impute=mean_impute)
     got = score_device(packed, 9, w, flip, mean_impute=mean_impute,
-                       block_variants=16, interpret=True)
+                       block_variants=16)
     np.testing.assert_allclose(got.sums, ref.sums, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got.dosage_sum, ref.dosage_sum,
                                rtol=2e-5, atol=2e-5)
@@ -91,7 +91,7 @@ def test_score_sample_subset(tmp_path):
     np.testing.assert_allclose(got.sums, ref[0], rtol=1e-12, atol=1e-12)
     np.testing.assert_array_equal(got.allele_ct, ref[2])
     dev = score_device(packed, 10, w, flip, sample_idx=sel,
-                       block_variants=16, interpret=True)
+                       block_variants=16)
     np.testing.assert_allclose(dev.sums, ref[0], rtol=2e-5, atol=2e-5)
 
 

@@ -1,6 +1,6 @@
 """Statistical tail functions vs FROZEN high-precision literals.
 
-VERDICT r3 item 3: the per-variant GLM oracles previously computed their
+The per-variant GLM oracles previously computed their
 expected p-values with the *production* tail functions, so a bug in the
 shared tail code would pass the oracle comparison. These tables were
 generated offline with mpmath at 50 decimal digits (independent
